@@ -7,6 +7,9 @@ clips of frames amortises the fixed per-dispatch cost with
 ``trace_packets_refit_frames`` (lax.scan over frames).
 
     PYTHONPATH=. python examples/animate_deform.py [frames] [size]
+
+On a GPU the kernel runs compiled.  `--interpret` runs it in Pallas' CPU
+interpreter instead (with JAX_PLATFORMS=cpu and a small size).
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import rtk_tpu
 from rtk_tpu.testing import scenes
 
 
-def main(n_frames=8, size=128):
+def main(n_frames=8, size=128, interpret=False):
     import jax
     import jax.numpy as jnp
 
@@ -27,7 +30,6 @@ def main(n_frames=8, size=128):
                                           trace_packets_refit_frames)
     from rtk_tpu.trace.packed import pack_scene
 
-    interpret = jax.default_backend() != "tpu"
     grid0 = scenes.deforming_grid(0.0, n=64)
     scene = rtk_tpu.build_scene(
         (grid0.reshape(-1, 3),
@@ -65,5 +67,5 @@ def main(n_frames=8, size=128):
 
 
 if __name__ == "__main__":
-    args = sys.argv[1:]
-    main(*(int(a) for a in args[:2]))
+    args = [a for a in sys.argv[1:] if a != "--interpret"]
+    main(*(int(a) for a in args[:2]), interpret="--interpret" in sys.argv)

@@ -6,7 +6,7 @@ it replaces (rtk.h:119-130), including the cooperative multithreaded
 build (host-owned worker threads pulling rtk_run_task from a shared
 queue, the reference's intended usage — SURVEY §3.2) and single-ray
 queries.  Once running, batch the queries (rtk_tpu.Tracer over ray
-arrays) to get TPU throughput — single-ray calls are dominated by
+arrays) to get accelerator throughput — single-ray calls are dominated by
 dispatch latency by design.
 
 Run: python examples/port_from_rtk.py  (any backend)

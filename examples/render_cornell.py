@@ -1,7 +1,7 @@
 """End-to-end demo: path-trace the Cornell box and write a PPM image.
 
-Runs anywhere (TPU uses the Pallas packet engine; CPU falls back to the
-XLA engine automatically).  From a repo checkout:
+Runs anywhere: Tracer(engine="auto") picks the engine for the backend
+(the measured one on a GPU, the XLA stack engine on the CPU).  From a repo checkout:
 
     PYTHONPATH=. python examples/render_cornell.py [out.ppm] [size] [spp]
 """

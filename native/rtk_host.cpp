@@ -3,7 +3,7 @@
 // The reference decodes mesh input on the host inside its cooperative task
 // system (_rtk_decode_indices/_rtk_decode_vertices, rtk.c:1028-1114, run in
 // 128-triangle chunks from build tasks).  rtk-tpu keeps the same division
-// of labour — the host canonicalises arbitrary input layouts, the TPU
+// of labour — the host canonicalises arbitrary input layouts, the device
 // builds the BVH — but the host side is this C++ library with a built-in
 // thread pool instead of per-chunk C callbacks: one call decodes a whole
 // mesh (strided/typed buffers -> packed f32 positions / u32 indices),

@@ -80,7 +80,7 @@ constexpr int kLeafMax = 4;
 static int g_leaf_max = kLeafMax;  // rtko_build2 override
 constexpr int kBins = 16;
 
-// Step-quantized SAH (rtko_build3): the TPU packet kernel tests leaves
+// Step-quantized SAH (rtko_build3): the traversal kernel tests leaves
 // in fixed K-row tiles (trace/packed.py pads every leaf to leaf_size
 // rows), so a visited leaf costs ceil(count/K) STEPS regardless of how
 // full it is.  Weighting the greedy SAH by leaf steps instead of
@@ -365,8 +365,8 @@ void rtko_trace(const void* scene, const float* rays, int64_t n, int mode,
 
 void rtko_free(void* scene) { delete (Scene*)scene; }
 
-// Tree export: lets the TPU packer run a host-SAH topology through the
-// same packet kernel (topology-quality experiments and the SAH build
+// Tree export: lets the device packer run a host-SAH topology through the
+// same traversal kernel (topology-quality experiments and the SAH build
 // option).  Arrays sized rtko_node_count / n triangles.
 int64_t rtko_node_count(const void* scene) {
   return (int64_t)((const Scene*)scene)->nodes.size();

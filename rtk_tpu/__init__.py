@@ -1,9 +1,10 @@
-"""rtk_tpu: a TPU-native ray-query engine (JAX/XLA/Pallas).
+"""rtk_tpu: a batched ray-query engine for the GPU (JAX/XLA/Pallas).
 
 Capabilities of bqqbarbhg/rtk — BVH build over flexible triangle meshes,
 watertight closest-hit / any-hit ray queries, serializable scenes —
-re-designed TPU-first: batched SoA APIs, on-device LBVH construction,
-lockstep wide-BVH wavefront traversal. See SURVEY.md for the blueprint.
+re-designed for an accelerator: batched SoA APIs, on-device LBVH
+construction, and a thread-per-ray wide-BVH traversal kernel. See
+SURVEY.md for the blueprint.
 """
 
 from rtk_tpu.api import (

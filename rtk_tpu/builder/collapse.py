@@ -10,12 +10,10 @@ same idea to log2(W) levels, computed for every node in parallel:
   * empty slots get inverted bounds (+1/-1) so any slab test fails, exactly
     like rtk's empty BVH4 slots (rtk.c:1612-1620).
 
-r5 layout note: slot bounds come from ONE row gather of a fused
+Layout note: slot bounds come from ONE row gather of a fused
 (Li + L + 1, 6) bounds table — internal rows, leaf rows, then a single
 sentinel row holding the inverted empty-slot bounds — instead of six
-per-component element gathers.  TPU gathers cost ~80 ns per ROW almost
-independent of width, so 6 element-gathers of (Li*8) were ~8x the one
-row gather (tools/staged/build3.py: 1445 -> 181 ms at 5.24M tris).
+per-component element gathers.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Replaces the reference's task-recursive SAH builder (rtk.c:867-1019) with a
 sort-based construction: every step below is a fixed-trip-count loop of dense
 vector ops over all nodes at once — no recursion, no atomics, no dynamic
-shapes — which is what XLA/TPU want.
+shapes — which is what XLA wants.
 
 Numbering: L leaves (Morton-sorted triangle clusters), L-1 internal nodes.
 Internal node i covers a contiguous range of sorted leaves; node 0 is the

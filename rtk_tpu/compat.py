@@ -2,7 +2,7 @@
 
 A user of the reference C library (rtk.h:119-130) can drive rtk-tpu through
 the same ten entry points, spelled the same way.  Each function is a thin
-adapter over the batched TPU-native API — the mapping is:
+adapter over the batched API — the mapping is:
 
     rtk_start_build / rtk_run_task /          -> rtk_tpu.tasks lifecycle
         rtk_get_build_size /
@@ -20,7 +20,7 @@ Types mirror rtk.h: RtkRay ~ rtk_ray (rtk.h:29-34), RtkHit ~ rtk_hit
 (rtk.h:64-76: strided buffers, u16/u32 indices, f32/f64 positions, or
 callbacks), RtkSceneDesc ~ rtk_scene_desc (rtk.h:97-104 with log_fn).
 
-Single-ray calls exist for drop-in parity but waste the TPU; batch rays
+Single-ray calls exist for drop-in parity but waste the device; batch rays
 through `rtk_tpu.Tracer` for real throughput.
 """
 from __future__ import annotations

@@ -17,16 +17,15 @@ class BuildConfig:
     Attributes:
       leaf_size: triangles per leaf (rtk: RTK_BVH_LEAF_MIN_ITEMS=4).
       branching: wide-node arity W; 2, 4 or 8 (rtk builds BVH4, rtk.c:1576;
-        TPUs want 8 so child slab tests fill VPU lanes).
+        the traversal kernel's packed tables are 8-wide).
       morton_bits: bits per axis of the Morton code (<=10 for uint32 keys).
       snap_node_counts: round dynamic node counts up to the next power of two
         bucket so repeated builds of similarly-sized scenes reuse compiles.
       wide_nodes: also build the wide (branching-ary) SoA node arrays.
         The packet-kernel product path derives its own tables from the
         binary topology (trace/packed.py), so a kernel-only user can skip
-        the collapse — at build-at-scale it is the single costliest stage
-        (~1.4 s of a 2.5 s 5.24M-tri build, tools/staged/build2.py).  The
-        XLA stack/stackless engines and wide-array refit need True.
+        the collapse, the costliest build stage at scale.  The XLA
+        stack/stackless engines and wide-array refit need True.
     """
 
     leaf_size: int = 4
@@ -57,34 +56,15 @@ class TraceConfig:
         rtk.c:5; wide nodes divide the needed depth by log2(W)).
       watertight: resolve exact-zero shear-space edge functions with
         double-word (two-float) products, mirroring rtk's f64 fallback
-        (rtk.c:294-336) without needing f64 on TPU.
+        (rtk.c:294-336) without needing f64.
       max_steps: hard bound on traversal loop iterations (safety net; the
         loop normally exits when every ray's stack is empty).
-      block_rays: process rays in blocks of this many to bound stack memory;
-        0 traces the whole batch at once.
-      dual_queues: packet engine stepping policy. None = per-call (the
-        tracer's `coherent` hint decides; default single mixed stack);
-        True/False forces split internal-stack + leaf-queue stepping on/off
-        (split is ~1.6x faster on incoherent bounce batches, slightly
-        slower on coherent primaries).
-      defer_uv: packet engine only — drop the u/v hit carries and the
-        rcp_det normalise from the kernel; PacketHits recomputes u/v
-        lazily on access (hits/t/slot bit-equal, u/v exact up to fma
-        contraction).  Measured +3.5% on the 67M headline; off by
-        default because it perturbs last-bit u/v.
-      pkt / packets_per_block: packet engine block geometry overrides
-        (ray lanes per packet, a multiple of 128; packets per kernel
-        block, a multiple of 8).  None = the measured auto policy (wide
-        for coherent batches).  Incoherent bounce batches measured best
-        at pkt=256 x 16 packets/block once ordering+pruning landed
-        (atrium 1M bounce 1.52 -> 1.76 Mrays/s, PERF_NOTES r4).
+      defer_uv: kernel engine only — drop the u/v hit carries from the
+        kernel; PacketHits recomputes u/v lazily on access (hit/t/slot
+        bit-equal, u/v equal up to rounding).  Off by default.
     """
 
     max_stack: int = 48
     watertight: bool = True
     max_steps: int = 0  # 0 = unbounded (loop until all rays finish)
-    block_rays: int = 0
-    dual_queues: bool | None = None
     defer_uv: bool = False
-    pkt: int | None = None
-    packets_per_block: int | None = None

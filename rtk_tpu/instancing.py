@@ -1,7 +1,7 @@
 """Two-level TLAS/BLAS instancing.
 
 The reference is single-level (one scene blob, no instancing); this is the
-scale-out path the BASELINE 10M-tri config requires.  TPU-first design:
+scale-out path the BASELINE 10M-tri config requires.  Design:
 
   * All BLAS scenes are merged into ONE concatenated node/triangle space
     (child ids and leaf ids offset per BLAS), so a single traversal program
@@ -9,9 +9,9 @@ scale-out path the BASELINE 10M-tri config requires.  TPU-first design:
   * The top level is not a pointer-chasing tree walk: instance candidates
     are found by testing rays against ALL instance world AABBs as one dense
     (rays x instances) slab computation, keeping the nearest `C` candidates
-    per ray via top_k.  For the instance counts the config targets (tens to
-    thousands), this is faster on TPU than a divergent TLAS descent, and
-    it is trivially batchable/shardable.
+    per ray.  For the instance counts the config targets (tens to
+    thousands) this is one dense data-parallel pass instead of a divergent
+    TLAS descent, and it is trivially batchable/shardable.
   * Phase two walks candidates nearest-first: each round transforms rays
     into the candidate's object space (affine inverse, direction left
     unnormalised so object-space t == world-space t) and traces the merged
@@ -27,7 +27,8 @@ from typing import Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from rtk_tpu.pytree import pytree_dataclass, static_field
 
 from rtk_tpu.config import TraceConfig
 from rtk_tpu.scene import Scene
@@ -37,7 +38,8 @@ from rtk_tpu.types import Hits, Rays
 Array = jax.Array
 
 
-class InstancedScene(struct.PyTreeNode):
+@pytree_dataclass
+class InstancedScene:
     """Merged BLAS forest + instance table."""
 
     merged: Scene  # concatenated BLAS scenes (multi-root)
@@ -48,7 +50,7 @@ class InstancedScene(struct.PyTreeNode):
     inst_lo: Array  # (I, 3) world AABB of each instance
     inst_hi: Array  # (I, 3)
     # Real (unpadded) triangle count per unique BLAS, static host-side.
-    blas_tris: tuple = struct.field(pytree_node=False, default=())
+    blas_tris: tuple = static_field(default=())
 
     @property
     def num_instances(self) -> int:
@@ -201,8 +203,8 @@ def _instance_candidates_impl(inst_lo, inst_hi, origin, direction, min_t,
         score = jnp.where(hit, enter, jnp.inf)
         iota = jax.lax.broadcasted_iota(jnp.int32, score.shape, 1)
         idxs, ts = [], []
-        # C passes of masked argmin: far cheaper on TPU than lax.top_k's
-        # full sort over the instance axis.
+        # C passes of masked argmin instead of a full sort over the
+        # instance axis.
         for _ in range(c):
             j = jnp.argmin(score, axis=1)
             v = jnp.min(score, axis=1)
@@ -227,7 +229,7 @@ def _instance_candidates(iscene: InstancedScene, rays: Rays, c: int,
                          chunk: int = 16384):
     """Nearest-C instance candidates per ray by AABB entry distance.
 
-    The TPU top level is not a pointer-chasing tree walk: a dense
+    The top level is not a pointer-chasing tree walk: a dense
     (rays x instances) slab pass in one fused dispatch (lax.map over ray
     chunks bounds the live (chunk, I) temporaries).
 
@@ -247,6 +249,18 @@ def _instance_candidates(iscene: InstancedScene, rays: Rays, c: int,
         pad_one(jnp.asarray(rays.max_t), 0.0),
         c=c, chunk=chunk)
     return ci[:n], ct[:n], ov[:n]
+
+
+def _to_object(inv, origin, direction):
+    """World rays into object space by per-ray (3, 4) affine inverses.
+
+    HIGHEST precision: a float32 product may otherwise run in TF32 on the
+    GPU, which moves object-space rays by ~1e-3 relative."""
+    hi = jax.lax.Precision.HIGHEST
+    o = (jnp.einsum("nab,nb->na", inv[:, :, :3], origin, precision=hi)
+         + inv[:, :, 3])
+    d = jnp.einsum("nab,nb->na", inv[:, :, :3], direction, precision=hi)
+    return o, d
 
 
 def trace_closest_instanced(
@@ -285,9 +299,7 @@ def trace_closest_instanced(
             break
         safe = jnp.clip(inst, 0, iscene.num_instances - 1)
         inv = jnp.take(iscene.object_from_world, safe, axis=0)  # (N,3,4)
-        o = (jnp.einsum("nab,nb->na", inv[:, :, :3], rays.origin)
-             + inv[:, :, 3])
-        d = jnp.einsum("nab,nb->na", inv[:, :, :3], rays.direction)
+        o, d = _to_object(inv, rays.origin, rays.direction)
         start = jnp.take(iscene.roots, jnp.take(iscene.instance_blas, safe))
         obj_rays = Rays(
             origin=o,
@@ -309,11 +321,12 @@ def trace_closest_instanced(
 
 
 # ---------------------------------------------------------------------------
-# Packet-kernel instanced tracing: rays grouped by candidate instance so each
-# 128-ray packet traverses a single BLAS root in its own object space.
+# Kernel instanced tracing: each candidate round traces every live ray from
+# its candidate instance's BLAS root, in that instance's object space.
 # ---------------------------------------------------------------------------
 
-class PackedInstancedScene(struct.PyTreeNode):
+@pytree_dataclass
+class PackedInstancedScene:
     iscene: InstancedScene
     packed: "object"  # PackedScene of the merged forest
     packed_roots: Array  # (B,) i32 packed node id per BLAS
@@ -321,7 +334,7 @@ class PackedInstancedScene(struct.PyTreeNode):
 
 def pack_instanced(iscene: InstancedScene, packed=None,
                    packed_roots=None) -> PackedInstancedScene:
-    """Pack the merged BLAS forest for the packet kernel.
+    """Pack the merged BLAS forest for the traversal kernel.
 
     packed/packed_roots: optional override tables (e.g. the host-SAH
     forest from builder.sah.build_sah_forest — static BLAS geometry
@@ -341,109 +354,23 @@ def pack_instanced(iscene: InstancedScene, packed=None,
                                  jnp.int32))
 
 
-@functools.partial(jax.jit, static_argnames=())
-def _object_rays(iscene_obw, rays_o, rays_d, inst_safe):
-    inv = jnp.take(iscene_obw, inst_safe, axis=0)  # (N,3,4)
-    o = jnp.einsum("nab,nb->na", inv[:, :, :3], rays_o) + inv[:, :, 3]
-    d = jnp.einsum("nab,nb->na", inv[:, :, :3], rays_d)
-    return o, d
+CAP_QUANTUM = 256  # round caps are powers of two times this many rows
 
 
-def _one_round(packed, object_from_world, rays, best, best_inst,
-               cand_col, cand_t_col, gidx, roots, interpret, unit):
-    """One candidate round: gather the grouped rays, transform to object
-    space, trace the merged BLAS, scatter improvements back.
+def _instanced_kernel_impl(packed, object_from_world, packed_roots,
+                           inst_blas, inst_lo, inst_hi, origin, direction,
+                           min_t, max_t, *, C, n_inst, chunk, interpret,
+                           caps=None):
+    """Candidates + all rounds as ONE device program.
 
-    `best` is the slim running state dict (t, u, v, slot) — full hit
-    records are materialised once after the last round, not per round.
-    Rays whose candidate entry distance can no longer beat their current
-    best get max_t = 0 (dead: their packets finish in a step or two) —
-    the on-device replacement for the old host-synced liveness check."""
-    from rtk_tpu.ops.pallas_trace import trace_packets
+    Round s sorts the rays by their rank-s candidate instance (a stable
+    sort: rays of one instance stay in camera order, and rays with no live
+    candidate sink to the end), transforms them into object space, traces
+    them with per-ray roots and scatters improvements back by ray id.
 
-    n = rays.count
-    num_inst = object_from_world.shape[0]
-    safe_ray = jnp.clip(gidx, 0, n - 1)
-    inst_of_slot = jnp.take(cand_col, safe_ray)
-    o, d = _object_rays(
-        object_from_world,
-        jnp.take(rays.origin, safe_ray, axis=0),
-        jnp.take(rays.direction, safe_ray, axis=0),
-        jnp.clip(inst_of_slot, 0, num_inst - 1))
-    btake = jnp.take(best["t"], safe_ray)
-    live = (gidx >= 0) & (jnp.take(cand_t_col, safe_ray) < btake)
-    grouped = Rays(
-        origin=o,
-        direction=d,
-        min_t=jnp.take(rays.min_t, safe_ray),
-        max_t=jnp.where(live, btake, 0.0),
-    )
-    h = trace_packets(packed, grouped, packet_roots=roots, pkt=unit,
-                      interpret=interpret)
-    improved = h.hit & (gidx >= 0) & (h.t < btake)
-    tgt = jnp.where(improved, gidx, n)
-    best = {k: best[k].at[tgt].set(v, mode="drop")
-            for k, v in (("t", h.t), ("u", h.u), ("v", h.v),
-                         ("slot", h.slot))}
-    best_inst = best_inst.at[tgt].set(inst_of_slot, mode="drop")
-    return best, best_inst
-
-
-def _sorted_group(cand_col, cand_t_col, comps, n_bins, unit):
-    """Sort-based per-round grouping (no big gathers — PERF_NOTES r2
-    measured the take()-based version 30x off on TPU).
-
-    comps: tuple of (n,) arrays to carry through the grouping (ray
-    components, best-t, ...).  Appends n_bins*unit synthetic pad rows
-    with runtime-assigned bins so every bin's run is whole packets, then
-    ONE stable multi-operand sort lays out the grouped order.  Returns
-    (idx (M,) original row id or >=n for pads, bin_of_slot (M,),
-    sorted comps).  M = n + n_bins*unit, static."""
-    n = cand_col.shape[0]
-    npad = n_bins * unit
-    valid = cand_col >= 0
-    bin_r = jnp.where(valid, cand_col, n_bins).astype(jnp.int32)
-    counts = jnp.bincount(bin_r, length=n_bins + 1)[:n_bins]
-    need = ((-counts) % unit).astype(jnp.int32)
-    cum = jnp.cumsum(need)
-    j = jnp.arange(npad, dtype=jnp.int32)
-    pad_bin = jnp.searchsorted(cum, j, side="right").astype(jnp.int32)
-    # key: bin in high bits, pads after real rays of the same bin
-    key = jnp.concatenate([bin_r << 1, (pad_bin << 1) | 1])
-    idx = jnp.arange(n + npad, dtype=jnp.int32)
-    ext = [jnp.concatenate([c, jnp.zeros((npad,), c.dtype)])
-           for c in comps]
-    out = jax.lax.sort((key, idx, *ext), num_keys=1)
-    key_s, idx_s, *comps_s = out
-    return idx_s, (key_s >> 1), comps_s
-
-
-def _unsort_merge(idx, n, fields):
-    """Sort kernel outputs back to original row order by idx; returns the
-    first n rows of each field (pads carry idx >= n and sink)."""
-    out = jax.lax.sort((idx, *fields), num_keys=1)
-    return [f[:n] for f in out[1:]]
-
-
-def _instanced_packets_impl(packed, object_from_world, packed_roots,
-                            inst_blas, inst_lo, inst_hi, origin, direction,
-                            min_t, max_t, *, unit, M, C, n_inst, chunk,
-                            interpret, leaf_loop=False, ordered=False,
-                            p_pk=8, caps=None):
-    """Candidates + all grouped rounds as ONE device program.
-
-    Per round: sort rays into per-instance runs (padded to whole
-    packets), transform to object space, trace with per-packet BLAS
-    roots, sort results back, merge.  No host syncs and no large
-    gathers.
-
-    caps (static, optional): per-round row capacities.  Round s slices
-    the grouped layout to caps[s] rows before transforming/tracing and
-    scatters results back by row id — the r4 lesion showed the ROUND
-    KERNELS at 64% of a C=12 trace while late rounds have few live
-    rays, so full-width rounds burn the whole batch width every round.
-    A live row beyond its round's cap (caps mis-sized) is marked
-    unproven and lands in the caller's exactness residual — capping
+    caps (static, optional): per-round row capacities.  Round s traces
+    only the first caps[s] sorted rows.  A live row beyond its cap is
+    marked unproven and lands in the caller's exactness residual — a cap
     never drops a hit."""
     from rtk_tpu.ops.pallas_trace import trace_packets
 
@@ -459,101 +386,49 @@ def _instanced_packets_impl(packed, object_from_world, packed_roots,
     }
     best_inst = jnp.full((n,), -1, jnp.int32)
     over_cap = jnp.zeros((n,), bool)
-    live_counts = []  # per-round ACTUAL liveness (calibrate_round_caps)
+    live_counts = []  # per-round live rays (calibrate_round_caps)
 
     def round_body(s, best, best_inst, over_cap, cap):
-        slim = cap is not None and cap * 8 <= M
-        comps = (origin[:, 0], origin[:, 1], origin[:, 2],
-                 direction[:, 0], direction[:, 1], direction[:, 2],
-                 min_t, best["t"], cand_t[:, s])
-        if slim:
-            # Small round: sort only (key, idx) and gather the ray
-            # components for the cap rows — a cap-row gather beats
-            # carrying 9 extra full-width sort operands once the cap is
-            # well under the batch width.
-            idx_s, bin_s, _ = _sorted_group(
-                jnp.where(cand_t[:, s] < best["t"], cand_idx[:, s], -1),
-                cand_t[:, s], (), n_inst, unit)
-        else:
-            idx_s, bin_s, cs = _sorted_group(
-                jnp.where(cand_t[:, s] < best["t"], cand_idx[:, s], -1),
-                cand_t[:, s], comps, n_inst, unit)
-        if cap is not None and cap < idx_s.shape[0]:
-            if slim:
-                safe_tail = jnp.clip(idx_s[cap:], 0, n - 1)
-                cut_live = ((idx_s[cap:] < n) & (bin_s[cap:] < n_inst)
-                            & (jnp.take(cand_t[:, s], safe_tail)
-                               < jnp.take(best["t"], safe_tail)))
-            else:
-                cut_live = ((idx_s[cap:] < n) & (bin_s[cap:] < n_inst)
-                            & (cs[8][cap:] < cs[7][cap:]))
-            # Any real live row past the cap loses its trace: route it
-            # to the residual (its bin sorts before the dead tail, so a
-            # correctly sized cap never cuts one).
+        live0 = cand_t[:, s] < best["t"]
+        bin_r = jnp.where(live0, cand_idx[:, s], n_inst).astype(jnp.int32)
+        bin_s, idx_s = jax.lax.sort(
+            (bin_r, jnp.arange(n, dtype=jnp.int32)), num_keys=1,
+            is_stable=True)
+        if cap is not None and cap < n:
+            # A live row past the cap loses its trace: route it to the
+            # residual (live rows sort before the dead tail, so a large
+            # enough cap never cuts one).
             over_cap = over_cap.at[
-                jnp.where(cut_live, idx_s[cap:], n)].set(
+                jnp.where(bin_s[cap:] < n_inst, idx_s[cap:], n)].set(
                     True, mode="drop")
-            idx_s = idx_s[:cap]
-            bin_s = bin_s[:cap]
-            if not slim:
-                cs = [c[:cap] for c in cs]
-        if slim:
-            safe = jnp.clip(idx_s, 0, n - 1)
-            cs = [jnp.take(c, safe) for c in comps]
-        o0, o1, o2, d0, d1, d2, mnt, bt, ct = cs
-        is_real = idx_s < n
-        safe_bin = jnp.minimum(bin_s, n_inst - 1)
-        inv = jnp.take(object_from_world, safe_bin, axis=0)  # (M,3,4)
-        ow = jnp.stack([o0, o1, o2], axis=1)
-        dw = jnp.stack([d0, d1, d2], axis=1)
-        oo = jnp.einsum("nab,nb->na", inv[:, :, :3], ow) + inv[:, :, 3]
-        od = jnp.einsum("nab,nb->na", inv[:, :, :3], dw)
-        live = is_real & (bin_s < n_inst) & (ct < bt)
-        grouped = Rays(origin=oo, direction=od, min_t=mnt,
+            bin_s, idx_s = bin_s[:cap], idx_s[:cap]
+        live = bin_s < n_inst
+        inst = jnp.minimum(bin_s, n_inst - 1)
+        o, d = _to_object(jnp.take(object_from_world, inst, axis=0),
+                          jnp.take(origin, idx_s, axis=0),
+                          jnp.take(direction, idx_s, axis=0))
+        bt = jnp.take(best["t"], idx_s)
+        grouped = Rays(origin=o, direction=d,
+                       min_t=jnp.take(min_t, idx_s),
                        max_t=jnp.where(live, bt, 0.0))
-        roots = jnp.take(
-            packed_roots,
-            jnp.take(inst_blas, jnp.minimum(bin_s[::unit], n_inst - 1)))
-        h = trace_packets(packed, grouped, packet_roots=roots, pkt=unit,
-                          interpret=interpret, leaf_loop=leaf_loop,
-                          ordered=ordered, p_pk=p_pk)
-        if cap is not None:
-            # Scatter-merge by row id: the capped rows no longer span
-            # the batch, so the full-width unsort sort is both wasted
-            # and wrong-shaped.  Improvements target their original ray
-            # row; everything else targets n (dropped).
-            improved = h.hit & (h.t < bt) & live
-            tgt = jnp.where(improved, idx_s, n)
-            best = {k: best[k].at[tgt].set(v, mode="drop")
-                    for k, v in (("t", h.t), ("u", h.u), ("v", h.v),
-                                 ("slot", h.slot))}
-            best_inst = best_inst.at[tgt].set(bin_s, mode="drop")
-            return best, best_inst, over_cap
-        ht, hu, hv, hs, binb = _unsort_merge(
-            idx_s, n, (h.t, h.u, h.v, h.slot, bin_s))
-        improved = (hs >= 0) & (ht < best["t"])
-        best = {
-            "t": jnp.where(improved, ht, best["t"]),
-            "u": jnp.where(improved, hu, best["u"]),
-            "v": jnp.where(improved, hv, best["v"]),
-            "slot": jnp.where(improved, hs, best["slot"]),
-        }
-        best_inst = jnp.where(improved, binb, best_inst)
+        roots = jnp.take(packed_roots, jnp.take(inst_blas, inst))
+        h = trace_packets(packed, grouped, roots=roots, sort_rays=False,
+                          interpret=interpret)
+        improved = h.hit & (h.t < bt) & live
+        tgt = jnp.where(improved, idx_s, n)
+        best = {k: best[k].at[tgt].set(v, mode="drop")
+                for k, v in (("t", h.t), ("u", h.u), ("v", h.v),
+                             ("slot", h.slot))}
+        best_inst = best_inst.at[tgt].set(bin_s, mode="drop")
+        # A stack overflow leaves that ray's round unproven.
+        over_cap = over_cap.at[jnp.where(h.overflow & live, idx_s, n)].set(
+            True, mode="drop")
         return best, best_inst, over_cap
 
     for s in range(C):
-        # Pre-sort liveness: a candidate whose AABB entry is already past
-        # the ray's best hit will be masked dead after the sort anyway —
-        # binning it as dead HERE keeps it out of the instance runs, so
-        # later rounds' packets hold only rays that still need tracing
-        # (bounce batches resolve mostly in round 0).  Rounds with ZERO
-        # live candidates skip entirely at runtime (lax.cond): most rays
-        # prove within their first 1-2 candidates, so a C sized for the
-        # scene's p99 overlap depth costs only the rounds that matter —
-        # without the skip, every extra round paid two full-width
-        # multi-operand sorts + a kernel dispatch (r4: the instanced
-        # config's cost was exactly these empty rounds).
-        cap = None if caps is None else min(int(caps[s]), M)
+        # Rounds with no live candidate skip at run time: most rays prove
+        # within their first one or two candidates.
+        cap = None if caps is None else min(int(caps[s]), n)
         n_live = jnp.sum((cand_t[:, s] < best["t"]).astype(jnp.int32))
         live_counts.append(n_live)
         best, best_inst, over_cap = jax.lax.cond(
@@ -563,25 +438,16 @@ def _instanced_packets_impl(packed, object_from_world, packed_roots,
             best, best_inst, over_cap)
     # A ray whose (C+1)-th instance-AABB entry is still closer than its
     # best hit is unproven; the caller re-traces those exhaustively.
-    # over_cap rays lost a round to their cap and are unproven too.
     unproven = (overflow < best["t"]) | over_cap
     return best, best_inst, unproven, jnp.stack(live_counts)
 
 
 @functools.lru_cache(maxsize=None)
-def _instanced_packets_jit(interpret: bool, tpu: bool, unit: int, M: int,
-                           C: int, n_inst: int, chunk: int,
-                           leaf_loop: bool = False, ordered: bool = False,
-                           p_pk: int = 8, caps=None):
-    # See _instanced_rounds_jit note in r1: many per-round ray blocks trip
-    # the default 16 MB scoped-vmem budget; v5e has 128 MB.
-    opts = {"xla_tpu_scoped_vmem_limit_kib": 120 * 1024} if tpu else None
-    return jax.jit(
-        functools.partial(_instanced_packets_impl, unit=unit, M=M, C=C,
-                          n_inst=n_inst, chunk=chunk, interpret=interpret,
-                          leaf_loop=leaf_loop, ordered=ordered, p_pk=p_pk,
-                          caps=caps),
-        compiler_options=opts)
+def _instanced_kernel_jit(interpret: bool, C: int, n_inst: int, chunk: int,
+                          caps=None):
+    return jax.jit(functools.partial(
+        _instanced_kernel_impl, C=C, n_inst=n_inst, chunk=chunk,
+        interpret=interpret, caps=caps))
 
 
 def _residual_exhaustive(pscene, rays, best, best_inst, unproven):
@@ -605,9 +471,7 @@ def _residual_exhaustive(pscene, rays, best, best_inst, unproven):
             break
         safe = jnp.clip(inst, 0, n_inst - 1)
         inv_m = jnp.take(iscene.object_from_world, safe, axis=0)
-        o = (jnp.einsum("nab,nb->na", inv_m[:, :, :3], rays.origin)
-             + inv_m[:, :, 3])
-        d = jnp.einsum("nab,nb->na", inv_m[:, :, :3], rays.direction)
+        o, d = _to_object(inv_m, rays.origin, rays.direction)
         start = jnp.take(iscene.roots, jnp.take(iscene.instance_blas, safe))
         obj_rays = Rays(origin=o, direction=d, min_t=rays.min_t,
                         max_t=jnp.where(live, best_t, 0.0))
@@ -626,39 +490,36 @@ def _residual_exhaustive(pscene, rays, best, best_inst, unproven):
     return best, best_inst
 
 
+def _quantize_cap(need: int, n: int) -> int:
+    q = CAP_QUANTUM
+    while q < need:
+        q *= 2
+    return min(q, n)
+
+
 def trace_closest_instanced_packets(
     pscene: PackedInstancedScene,
     rays: Rays,
     max_candidates: int = 8,
     interpret: bool = False,
     exact: bool = True,
-    leaf_loop: bool = False,
-    ordered: bool = False,
-    p_pk: int = 8,
     round_caps=None,
     return_live_counts: bool = False,
-    unit: int | None = None,
 ) -> tuple[Hits, Array]:
-    """Closest-hit over an instanced scene using the Pallas packet kernel.
+    """Closest-hit over an instanced scene using the traversal kernel.
 
-    Per candidate round, live rays are grouped by instance ON DEVICE
-    (sort + searchsorted ranks + padded scatter), padded to 128-ray
-    packets sharing that instance's BLAS root, transformed to object
-    space, and traced with per-packet roots.  Candidates, grouping and
-    all rounds fuse into one device program with zero host syncs.
+    Per candidate round, live rays are grouped by instance on device,
+    transformed to object space, and traced from their instance's BLAS
+    root (per-ray roots).  Candidates and all rounds fuse into one device
+    program with no host syncs; the exactness residual is one more.
+
+    round_caps: None, "auto" (bound each round by its candidate-rank
+    population) or a tuple of C row capacities (calibrate_round_caps).
     """
-    from rtk_tpu.ops.pallas_trace import PKT
     from rtk_tpu.types import PacketHits
 
     iscene = pscene.iscene
     n = rays.count
-    # Packet unit: per-instance ray groups pad to whole packets.  Unlike
-    # flat scenes (where wider packets win with batch size), instanced
-    # traversal stays union-footprint-bound — a 512-ray per-instance
-    # packet spans most of its object and measured 20-30% SLOWER than
-    # 128 at 512^2..1024^2 (pre-ordered/prune; unit= lets callers
-    # re-probe under newer flags); default keeps the narrow unit.
-    unit = PKT if unit is None else int(unit)
     n_inst = iscene.num_instances
     C = min(max_candidates, n_inst)
     chunk = min(16384, max(1, n))
@@ -672,38 +533,17 @@ def trace_closest_instanced_packets(
         return jnp.concatenate(
             [a, jnp.full((pad,) + a.shape[1:], fill, a.dtype)])
 
-    # Static grouped size: every ray + <= unit-1 padding per nonempty
-    # instance run, rounded to whole kernel blocks (p_pk packets each).
-    blk = p_pk * unit
-    M = (np_ + n_inst * unit + blk - 1) // blk * blk
-
     if round_caps == "auto":
-        # Size each round's kernel width from the batch's actual
-        # candidate-rank population (r5: full-width rounds were 64% of
-        # the trace while late ranks hold a few % of rays).  One extra
-        # candidates dispatch + a C-int readback; counts ignore best-t
-        # evolution so they upper-bound every round's live set, and
-        # pow2-of-block quantisation bounds the compile variants.
         ci, ct, _ = _instance_candidates(pscene.iscene, rays, C)
         cnt = np.asarray(jnp.sum(
             (ci >= 0) & (ct < jnp.asarray(rays.max_t)[:, None]), axis=0))
-        caps = []
-        for s in range(C):
-            need = int(cnt[s]) + unit * min(int(cnt[s]), n_inst)
-            q = blk
-            while q < need:
-                q *= 2
-            caps.append(min(q, M))
-        round_caps = tuple(caps)
+        round_caps = tuple(_quantize_cap(int(c), np_) for c in cnt)
     elif round_caps is not None:
         round_caps = tuple(int(c_) for c_ in round_caps)
         if len(round_caps) != C:
             raise ValueError(f"round_caps needs {C} entries")
 
-    fn = _instanced_packets_jit(interpret, jax.default_backend() == "tpu",
-                                unit, M, C, n_inst, chunk,
-                                leaf_loop=leaf_loop, ordered=ordered,
-                                p_pk=p_pk, caps=round_caps)
+    fn = _instanced_kernel_jit(interpret, C, n_inst, chunk, caps=round_caps)
     best, best_inst, unproven, live_counts = fn(
         pscene.packed, iscene.object_from_world, pscene.packed_roots,
         iscene.instance_blas, iscene.inst_lo, iscene.inst_hi,
@@ -719,28 +559,16 @@ def trace_closest_instanced_packets(
         # exhaustive re-trace (all-instance candidates through the XLA
         # stack path, which exposes its internal sorted slot -> mapped to
         # a packed slot so the lazy PacketHits record stays consistent).
-        # One scalar host sync.  The residual is COMPACTED first (r4):
-        # the stack engine's per-round cost scales with the ray-array
-        # width whether lanes are live or not, and an un-compacted
-        # residual at 30% unproven (bench instanced camera, overlap
-        # depth p90=9 > C=4) measured ~98 s per 262k-ray trace — the
-        # whole-batch rounds were the entire cost.
+        # One scalar host sync.  The residual is compacted first: the
+        # stack engine's per-round cost scales with the batch width.
         unp = np.asarray(unproven)
         idx = np.flatnonzero(unp)
         n_res = idx.size
         if n_res:
-            # Pad the compacted batch to a power of two so repeated
-            # traces reuse one compiled residual program per bucket
-            # (the stack engine jits per shape; an exact-size batch
-            # would recompile on every call).  Pad rays are dead
-            # (max_t=0) and their scatter-back is masked off.
-            # Cap at the full batch width: pow2 rounding can otherwise
-            # exceed n (n_res just over n/2 on a non-pow2 batch), making
-            # the "compacted" residual wider than the uncompacted one.
+            # Pad to a power of two (one compiled residual per bucket),
+            # capped at the batch width.  Pad rays are dead (max_t=0);
+            # their indices are out of bounds, so scatters drop them.
             m_res = min(max(256, 1 << (n_res - 1).bit_length()), max(n, 256))
-            # Pad entries index out of bounds: gathers clip (their rows
-            # are dead via max_t=0), scatters drop them — no duplicate-
-            # index race against real rows.
             pad_idx = np.full(m_res, n, np.int64)
             pad_idx[:n_res] = idx
             idxj = jnp.asarray(pad_idx, jnp.int32)
@@ -784,48 +612,20 @@ def trace_closest_instanced_packets(
 
 def calibrate_round_caps(pscene: PackedInstancedScene, rays: Rays,
                          max_candidates: int = 8, margin: float = 1.5,
-                         p_pk: int = 8, unit: int | None = None, **kw):
-    """Measure per-round ACTUAL liveness on a sample batch and derive
-    round_caps for subsequent traces (the grid engine's calibrate_caps
-    pattern).
-
-    The 'auto' caps bound each round by its candidate-rank population,
-    but a ray's rank-s AABB overlap counts whether or not an earlier
-    candidate already resolved it — on the bench camera that bound
-    barely shrinks (inst4 probe: 957 -> 911 ms).  True round liveness
-    (cand_t[s] < best_t as best evolves) collapses much faster; this
-    runs one uncapped trace that also reports those counts and sizes
-    caps at margin x measured (pow2-of-block).  A hotter later batch
-    only loses rows to the exactness residual, never hits.
-    """
-    from rtk_tpu.ops.pallas_trace import PKT
-
+                         **kw):
+    """Measure per-round live rays on a sample batch and derive round_caps
+    for later traces: margin x measured, quantised to powers of two.  A
+    hotter later batch only loses rows to the exactness residual, never
+    hits."""
     _, _, counts = trace_closest_instanced_packets(
-        pscene, rays, max_candidates=max_candidates, p_pk=p_pk,
-        return_live_counts=True, unit=unit, **kw)
-    return caps_from_counts(np.asarray(counts), rays.count,
-                            pscene.iscene.num_instances, margin=margin,
-                            p_pk=p_pk, unit=unit)
+        pscene, rays, max_candidates=max_candidates,
+        return_live_counts=True, **kw)
+    return caps_from_counts(np.asarray(counts), rays.count, margin=margin)
 
 
-def caps_from_counts(counts, n: int, n_inst: int, margin: float = 1.5,
-                     p_pk: int = 8, unit: int | None = None):
+def caps_from_counts(counts, n: int, margin: float = 1.5):
     """round_caps tuple from measured per-round live counts (callers that
-    pool counts across several batches — e.g. a wavefront sharing ONE
-    fused-program compile across its bounces — take an elementwise max
-    first)."""
-    from rtk_tpu.ops.pallas_trace import PKT
-
-    unit = PKT if unit is None else int(unit)
-    blk = p_pk * unit
+    pool counts across several batches take an elementwise max first)."""
     chunk = min(16384, max(1, n))
     np_ = n + ((-n) % chunk)
-    M = (np_ + n_inst * unit + blk - 1) // blk * blk
-    caps = []
-    for c in counts:
-        need = int(int(c) * margin) + unit * min(int(c), n_inst)
-        q = blk
-        while q < need:
-            q *= 2
-        caps.append(min(q, M))
-    return tuple(caps)
+    return tuple(_quantize_cap(int(int(c) * margin), np_) for c in counts)

@@ -20,7 +20,8 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from rtk_tpu.pytree import pytree_dataclass
 
 from rtk_tpu.ops.morton import morton3d
 from rtk_tpu.tracer import Tracer
@@ -29,7 +30,8 @@ from rtk_tpu.types import Hits, Rays
 Array = jax.Array
 
 
-class Materials(struct.PyTreeNode):
+@pytree_dataclass
+class Materials:
     """Per-mesh lambertian materials (indexed by Hits.mesh_index)."""
 
     albedo: Array  # (M, 3) f32
@@ -156,7 +158,7 @@ def render_path(
     gather (ray counts bucketed to powers of two to bound recompiles).
 
     bounce_tracer: optional engine for the incoherent bounce batches
-    (e.g. Tracer(scene, engine="grid")); primaries always go through
+    (e.g. Tracer(scene, engine="stack")); primaries always go through
     `tracer`.
     """
     n = rays.count
@@ -169,11 +171,10 @@ def render_path(
     hi = tracer.scene.bounds_max
 
     for bounce in range(bounces + 1):
-        # Bounce batches are incoherent even after Morton re-sorting; the
-        # hint selects the packet engine's split dual-queue stepping there.
+        # Bounce batches are incoherent even after Morton re-sorting.
         src = tracer if (bounce == 0 or bounce_tracer is None) \
             else bounce_tracer
-        hits = src.closest(cur, coherent=(bounce == 0))
+        hits = src.closest(cur)
         key, k_dir = jax.random.split(key)
         last = bounce == bounces
         out = _shade_sample(hits, cur, throughput, index, radiance,
@@ -258,5 +259,5 @@ def render_ao(
             min_t=jnp.full((n,), epsilon, jnp.float32),
             max_t=jnp.where(hits.hit, max_dist, 0.0),
         )
-        occ = occ + tracer.any(probe, coherent=False).hit.astype(jnp.float32)
+        occ = occ + tracer.any(probe).hit.astype(jnp.float32)
     return jnp.where(hits.hit, 1.0 - occ / samples, 0.0)

@@ -3,12 +3,14 @@
 Semantics follow the reference exactly (studied, not copied):
   * shear basis: z = first axis attaining max |dir| component (x, then y,
     then z priority), x/y cyclic (rtk.c:550-556);
-  * shear constants -dx/dz, -dy/dz, 1/dz with exact division (rtk.c:561-563,
-    RTK_MM_RCP is a true divide, rtk.c:162);
+  * shear constants -dx/dz, -dy/dz, 1/dz with a true divide (rtk.c:561-563,
+    RTK_MM_RCP, rtk.c:162).  It is XLA's f32 divide: correctly rounded on
+    the CPU, div.full.f32 (within 2 ulp) on the GPU.  The traversal kernel
+    divides the same way, so the engines agree bit for bit on a platform;
   * 2D shear-space edge functions u, v, w; a hit requires all three to share
     a sign (zero allowed on either side), rtk.c:298-344;
   * exact-zero edge functions are recomputed at higher precision to make the
-    test watertight (rtk.c:294-336 uses f64; on TPU we use double-word f32
+    test watertight (rtk.c:294-336 uses f64; here double-word f32
     products, ~2^-48 relative error, selectable);
   * t = (u*z0 + v*z1 + w*z2) / det, accepted iff min_t < t < cur_t — an open
     interval with a strict nearest-hit compare (rtk.c:346-371);
@@ -25,7 +27,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from rtk_tpu.pytree import pytree_dataclass
 
 Array = jax.Array
 
@@ -34,7 +37,8 @@ Array = jax.Array
 F32_INF = np.float32(np.inf)
 
 
-class ShearBasis(struct.PyTreeNode):
+@pytree_dataclass
+class ShearBasis:
     """Per-ray shear-space basis (parity: _rtk_trace setup, rtk.c:550-567)."""
 
     kx: Array  # (...,) i32 axis indices
@@ -70,16 +74,27 @@ def ray_shear(direction: Array) -> ShearBasis:
     )
 
 
+def rounded(p: Array) -> Array:
+    """`p`, hidden from floating-point contraction.
+
+    Compilers fuse a*b - c*d into fma(a, b, -c*d), which rounds the two
+    products differently.  An edge shared by two triangles then no longer
+    gets exactly opposite edge functions and a ray through it can leak.
+    Passing a product through a select its consumer cannot see through
+    keeps it rounded on its own (the select only maps -0.0 to +0.0)."""
+    return jnp.where(p == 0.0, jnp.float32(0.0), p)
+
+
 def _split(a: Array):
     """Veltkamp split of f32 into high/low halves (no FMA required)."""
-    c = jnp.float32(4097.0) * a  # 2^12 + 1
+    c = rounded(jnp.float32(4097.0) * a)  # 2^12 + 1
     hi = c - (c - a)
     return hi, a - hi
 
 
 def _two_prod(a: Array, b: Array):
     """Exact product a*b = p + e in double-word f32 arithmetic."""
-    p = a * b
+    p = rounded(a * b)
     a_hi, a_lo = _split(a)
     b_hi, b_lo = _split(b)
     e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
@@ -98,7 +113,7 @@ def _edge_fn_dw(ax, ay, bx, by):
     """Double-word evaluation of ax*by - ay*bx: sign-exact to ~2^-48.
 
     Plays the role of the reference's f64 recomputation (rtk.c:306-336)
-    without needing f64 (TPU f64 is emulated and slow).
+    without needing f64.
     """
     p1, e1 = _two_prod(ax, by)
     p2, e2 = _two_prod(ay, bx)
@@ -108,9 +123,9 @@ def _edge_fn_dw(ax, ay, bx, by):
 
 def watertight_uvw(x0, y0, x1, y1, x2, y2, watertight: bool = True):
     """Shear-space edge functions with exact-zero fix-up (rtk.c:298-336)."""
-    u = x1 * y2 - y1 * x2
-    v = x2 * y0 - y2 * x0
-    w = x0 * y1 - y0 * x1
+    u = rounded(x1 * y2) - rounded(y1 * x2)
+    v = rounded(x2 * y0) - rounded(y2 * x0)
+    w = rounded(x0 * y1) - rounded(y0 * x1)
     if watertight:
         any_zero = (u == 0.0) | (v == 0.0) | (w == 0.0)
         u = jnp.where(any_zero, _edge_fn_dw(x1, y1, x2, y2), u)
@@ -152,8 +167,8 @@ def intersect_triangles(
     sx = shear.sx[..., None, None]
     sy = shear.sy[..., None, None]
     sz = shear.sz[..., None, None]
-    x = vx + sx * vz  # (..., K, 3)
-    y = vy + sy * vz
+    x = vx + rounded(sx * vz)  # (..., K, 3)
+    y = vy + rounded(sy * vz)
     z = sz * vz
 
     u, v, w = watertight_uvw(
@@ -168,7 +183,8 @@ def intersect_triangles(
 
     det = u + v + w
     rcp_det = jnp.float32(1.0) / det
-    t = (u * z[..., 0] + v * z[..., 1] + w * z[..., 2]) * rcp_det
+    t = (rounded(u * z[..., 0]) + rounded(v * z[..., 1])
+         + rounded(w * z[..., 2])) * rcp_det
     # Open t interval, strict compares (rtk.c:354). NaN t fails both.
     in_window = (t > min_t[..., None]) & (t < cur_t[..., None])
     valid = in_window & ~bad_sign
@@ -216,5 +232,5 @@ def slab_test(
 
 
 def rcp_direction(direction: Array) -> Array:
-    """Exact 1/dir (rtk.c:410, RTK_MM_RCP is a divide). 0 -> signed inf."""
+    """1/dir by a true divide (rtk.c:410, RTK_MM_RCP). 0 -> signed inf."""
     return jnp.float32(1.0) / jnp.asarray(direction, jnp.float32)

@@ -1,7 +1,7 @@
 """Morton (Z-order) codes for LBVH construction.
 
 The reference builds a SAH BVH with recursive CPU tasks (rtk.c:867-1019);
-the TPU-native builder replaces it with sort-based LBVH: quantise triangle
+the on-device builder replaces it with sort-based LBVH: quantise triangle
 centroids to a grid over the scene bounds, interleave bits into Morton codes,
 sort, and derive the hierarchy from the sorted codes (builder/lbvh.py).
 Everything here is dense, branch-free vector code.

@@ -1,25 +1,27 @@
-"""Multi-chip scaling: rays data-parallel, or the scene itself sharded.
+"""Multi-device scaling: rays data-parallel, or the scene itself sharded.
 
 The reference scales queries only via host threads over a shared immutable
 scene blob (rtk.c:543-577 is pure w.r.t. the scene; SURVEY §2 parallelism
-table).  Two TPU modes:
+table).  Three modes over a `jax.sharding.Mesh` of GPUs:
 
-  * **Ray sharding** (v1, `trace_*_sharded`): the scene pytree is
-    replicated across chips, rays are split along their batch axis with
-    `shard_map`, each chip traverses independently — no collectives on the
-    hot path (the analogue of rtk's zero-synchronisation host threads).
-  * **Scene sharding** (v2, `build_scene_sharded` +
-    `trace_closest_scene_sharded`): for scenes larger than one chip's
+  * **Ray sharding** (`trace_*_sharded`): the scene pytree is replicated
+    across devices, rays are split along their batch axis with
+    `shard_map`, each device traverses independently — no collectives on
+    the hot path (the analogue of rtk's zero-synchronisation host threads).
+  * **Scene sharding** (`build_scene_sharded` +
+    `trace_closest_scene_sharded`): for scenes larger than one device's
     memory, the triangle soup is spatially partitioned (recursive median
-    split) into one sub-scene per chip; rays are REPLICATED, every chip
-    traces against its local subtree (foreign rays die at the sub-scene
-    root box), and the nearest hit is combined across ICI with a pmin on
-    t plus a rank tie-break — two collectives per trace, both riding ICI.
-  * **Hybrid 2D** (v3, `hybrid_mesh` + the same scene-sharded entry
-    points over a ("scene", "rays") mesh): the scene splits over one mesh
-    axis and the ray batch over the other — the dp x mp analogue for
-    giant scene + giant batch.  Hit combines ride the scene axis only
-    (a row of the 2D ICI torus); the ray axis stays collective-free.
+    split) into one sub-scene per device; rays are REPLICATED, every
+    device traces against its local subtree (foreign rays die at the
+    sub-scene root box), and the nearest hit is combined with a pmin on
+    t plus a rank tie-break — a few small collectives per trace, which
+    XLA hands to NCCL over NVLink.
+  * **Hybrid 2D** (`hybrid_mesh` + the same scene-sharded entry points
+    over a ("scene", "rays") mesh): the scene splits over one mesh axis
+    and the ray batch over the other.  Hit combines run over the scene
+    axis only; the ray axis stays collective-free.  Every GPU of a host
+    reaches every other at the same NVLink rate, so the mesh shape
+    follows the algorithm alone.
 """
 from __future__ import annotations
 
@@ -29,8 +31,10 @@ from typing import Callable, Optional, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
 from jax.sharding import Mesh, PartitionSpec as P
+
+from rtk_tpu.pytree import pytree_dataclass, static_field
 
 from rtk_tpu.config import TraceConfig
 from rtk_tpu.scene import Scene
@@ -40,8 +44,6 @@ from rtk_tpu.types import Hits, PacketHits, Rays
 
 def default_mesh(devices=None, axis_name: str = "rays") -> Mesh:
     devices = devices if devices is not None else jax.devices()
-    import numpy as np
-
     return Mesh(np.asarray(devices), (axis_name,))
 
 
@@ -87,10 +89,10 @@ def trace_sharded(
     filter_fn: Optional[Callable] = None,
     config: TraceConfig = TraceConfig(),
 ) -> Hits:
-    """Trace a ray batch sharded across the chip mesh (scene replicated).
+    """Trace a ray batch sharded across the device mesh (scene replicated).
 
     Rays are padded to a multiple of the mesh size (padding rays get
-    max_t = 0 so they immediately finish), traced independently per chip
+    max_t = 0 so they immediately finish), traced independently per device
     under shard_map, and the Hits are returned in the caller's layout.
     """
     if mesh is None:
@@ -134,20 +136,17 @@ def trace_packets_sharded(
     mode: str = "closest",
     watertight: bool = True,
     interpret: bool = False,
-    pkt: Optional[int] = None,
-    dual: bool = False,
     sort_rays: Optional[bool] = None,
     filter_mask: Optional[int] = None,
-) -> Hits:
-    """Sharded trace on the Pallas packet engine (PackedScene replicated).
+) -> PacketHits:
+    """Sharded trace on the traversal kernel (PackedScene replicated).
 
-    The per-chip program is the same fused sort->kernel->unsort dispatch as
+    The per-device program is the same sort->kernel->unsort program as
     trace_packets; shard_map only splits the ray batch, so scaling is
-    embarrassingly parallel over ICI exactly like host-thread query
-    parallelism in the reference (rtk.c:543-577 purity).
+    embarrassingly parallel, like host-thread query parallelism in the
+    reference (rtk.c:543-577 purity).
     """
     from rtk_tpu.ops.pallas_trace import trace_packets
-    from rtk_tpu.types import PacketHits
 
     if mesh is None:
         mesh = default_mesh()
@@ -158,15 +157,16 @@ def trace_packets_sharded(
     def local_trace(packed_local, rays_local):
         return trace_packets(
             packed_local, rays_local, mode=mode, watertight=watertight,
-            interpret=interpret, pkt=pkt, dual=dual, sort_rays=sort_rays,
+            interpret=interpret, sort_rays=sort_rays,
             filter_mask=filter_mask)
 
     # PacketHits is lazy: per-ray leaves shard over the ray axis, the packed
-    # triangle tables it carries stay replicated (identical on every chip).
+    # triangle tables it carries stay replicated (identical on every device).
     out_specs = PacketHits(
         hit=P(axis), t=P(axis), u_k=P(axis), v_k=P(axis), slot=P(axis),
         origin=P(axis), direction=P(axis),
-        tri_v=P(), tri_vidx=P(), tri_mesh=P(), tri_prim=P())
+        tri_v=P(), tri_vidx=P(), tri_mesh=P(), tri_prim=P(),
+        overflow=P(axis))
     sharded = jax.shard_map(
         local_trace,
         mesh=mesh,
@@ -175,60 +175,6 @@ def trace_packets_sharded(
         check_vma=False,
     )
     hits = jax.jit(sharded)(packed, padded)
-    if padded.count != n:
-        hits = hits[:n]
-    return hits
-
-
-def trace_grid_sharded(
-    grid,
-    rays: Rays,
-    mesh: Optional[Mesh] = None,
-    mode: str = "closest",
-    watertight: bool = True,
-    interpret: bool = False,
-    rounds: int = 10,
-    skips: int = 3,
-    unit: int = 128,
-    caps=None,
-    filter_mask: Optional[int] = None,
-):
-    """Sharded incoherent-ray trace on the macro-grid engine (GridScene
-    replicated, ray batch split over the mesh).
-
-    Same embarrassingly-parallel shape as trace_packets_sharded: each
-    chip runs the full grouping-sort/kernel round loop on its ray slice
-    — per-chip grouping is strictly better than global grouping would
-    be (smaller sorts, same cells).  Calibrate caps on one chip's
-    worth of a representative batch (trace.grid.calibrate_caps).
-    """
-    from rtk_tpu.testing.grid import trace_packets_grid
-    from rtk_tpu.types import PacketHits
-
-    if mesh is None:
-        mesh = default_mesh()
-    axis = mesh.axis_names[0]
-    n_dev = mesh.devices.size
-    padded, n = _pad_rays(rays, n_dev)
-
-    def local_trace(grid_local, rays_local):
-        return trace_packets_grid(
-            grid_local, rays_local, mode=mode, watertight=watertight,
-            interpret=interpret, rounds=rounds, skips=skips, unit=unit,
-            caps=caps, filter_mask=filter_mask)
-
-    out_specs = PacketHits(
-        hit=P(axis), t=P(axis), u_k=P(axis), v_k=P(axis), slot=P(axis),
-        origin=P(axis), direction=P(axis),
-        tri_v=P(), tri_vidx=P(), tri_mesh=P(), tri_prim=P())
-    sharded = jax.shard_map(
-        local_trace,
-        mesh=mesh,
-        in_specs=(P(), P(axis)),
-        out_specs=out_specs,
-        check_vma=False,
-    )
-    hits = jax.jit(sharded)(grid, padded)
     if padded.count != n:
         hits = hits[:n]
     return hits
@@ -245,17 +191,13 @@ def trace_instanced_sharded(
     """Sharded closest-hit over an instanced (TLAS/BLAS) scene — the
     PackedInstancedScene replicated, the ray batch split over the mesh.
 
-    Each chip runs the fused candidates+grouped-rounds program on its ray
-    slice (per-chip grouping sorts are smaller than a global one would
-    be, same instances).  The exactness residual — the one host-synced
-    step — runs ONCE on the gathered outputs, covering unproven rays
-    from every chip in a single exhaustive pass.
+    Each device runs the fused candidates+rounds program on its ray slice.
+    The exactness residual — the one host-synced step — runs ONCE on the
+    gathered outputs, covering unproven rays from every device in a single
+    exhaustive pass.
     """
-    import functools
-
-    from rtk_tpu.instancing import (_instanced_packets_impl,
+    from rtk_tpu.instancing import (_instanced_kernel_impl,
                                     _residual_exhaustive)
-    from rtk_tpu.ops.pallas_trace import PKT
 
     if mesh is None:
         mesh = default_mesh()
@@ -263,7 +205,6 @@ def trace_instanced_sharded(
     n_dev = mesh.devices.size
     iscene = pscene.iscene
     n_inst = iscene.num_instances
-    unit = PKT
     C = min(max_candidates, n_inst)
     # Per-shard static shapes (mirrors trace_closest_instanced_packets).
     n = rays.count
@@ -271,11 +212,8 @@ def trace_instanced_sharded(
     chunk = min(16384, max(1, per0))
     per = -(-per0 // chunk) * chunk
     padded, _ = _pad_rays(rays, per * n_dev)
-    blk = 8 * unit
-    M = (per + n_inst * unit + blk - 1) // blk * blk
-    impl = functools.partial(_instanced_packets_impl, unit=unit, M=M, C=C,
-                             n_inst=n_inst, chunk=chunk,
-                             interpret=interpret)
+    impl = functools.partial(_instanced_kernel_impl, C=C, n_inst=n_inst,
+                             chunk=chunk, interpret=interpret)
 
     def local_trace(packed, ofw, roots, iblas, ilo, ihi, o, d, mn, mx):
         best, best_inst, unproven, _ = impl(packed, ofw, roots, iblas,
@@ -314,25 +252,26 @@ def trace_instanced_sharded(
 
 
 # ---------------------------------------------------------------------------
-# Scene sharding (v2): spatial partition, one sub-scene per chip.
+# Scene sharding: spatial partition, one sub-scene per device.
 # ---------------------------------------------------------------------------
 
-class ShardedScene(struct.PyTreeNode):
-    """Per-chip packed sub-scenes, stacked on a leading device axis.
+@pytree_dataclass
+class ShardedScene:
+    """Per-device packed sub-scenes, stacked on a leading device axis.
 
     Leaves are padded to common shapes so the stack is rectangular; padding
     triangles are NaN rows (never hit) and padding nodes are never reached
     (every sub-scene's root is its node 0).
     """
 
-    nodes: "jax.Array"  # (D, NdMax*8, 8) i32
+    nodes: "jax.Array"  # (D, NdMax*8, 8) i32 (8 child rows per node)
     tris: "jax.Array"  # (D, TpMax, 16) f32
     tri_v: "jax.Array"  # (D, TpMax, 3, 3) f32
     tri_vidx: "jax.Array"  # (D, TpMax, 3) i32
     tri_mesh: "jax.Array"  # (D, TpMax) i32
     tri_prim: "jax.Array"  # (D, TpMax) i32
-    num_tris: int = struct.field(pytree_node=False)  # total real triangles
-    leaf_size: int = struct.field(pytree_node=False)
+    num_tris: int = static_field()  # total real triangles
+    leaf_size: int = static_field()
 
     @property
     def num_parts(self) -> int:
@@ -371,7 +310,7 @@ def partition_soup(tri_pos: np.ndarray, n_parts: int):
 
 def build_scene_sharded(meshes, mesh: Optional[Mesh] = None,
                         config=None) -> ShardedScene:
-    """Build one packed sub-scene per chip from a spatial partition.
+    """Build one packed sub-scene per device from a spatial partition.
 
     Accepts the same mesh inputs as rtk_tpu.build_scene.  Sub-scenes are
     built sequentially (host -> default device) and stacked; pass the
@@ -404,9 +343,6 @@ def build_scene_sharded(meshes, mesh: Optional[Mesh] = None,
 
     nd_max = max(p.nodes.shape[0] for p in packs)
     tp_max = max(p.tri_v.shape[0] for p in packs)
-    # The kernel table's row count tracks the padded triangle count but
-    # its shape depends on the layout (Pluecker scenes pack lane-dense
-    # 128-wide rows; legacy shear scenes use one 16-col row per tri).
     trow_max = max(p.tris.shape[0] for p in packs)
 
     def pad_to(a, n, fill):
@@ -436,13 +372,13 @@ def trace_scene_sharded(
     watertight: bool = True,
     interpret: bool = False,
 ) -> PacketHits:
-    """Trace against a scene sharded across the chip mesh.
+    """Trace against a scene sharded across the device mesh.
 
     On a 1D mesh rays are replicated; on a 2-axis ("scene", "rays")
     mesh (see hybrid_mesh) the ray batch additionally splits over the
-    second axis.  Each chip traverses its sub-scene; nearest hits
-    combine across ICI (pmin on t + lowest-rank tie-break + psum of the
-    selected fields), riding only the scene axis.  Returns a lazy
+    second axis.  Each device traverses its sub-scene; nearest hits
+    combine over the scene axis (pmin on t + lowest-rank tie-break + psum
+    of the selected fields).  Returns a lazy
     PacketHits whose tables are the concatenated per-part tables (slots
     are globalised as rank * part_tris + local_slot).
     """
@@ -472,12 +408,13 @@ def trace_scene_sharded(
         h = trace_packets(packed, rays_rep, mode=mode,
                           watertight=watertight, interpret=interpret)
         rank = jax.lax.axis_index(axis)
+        ovf = jax.lax.pmax(h.overflow.astype(jnp.int32), axis) > 0
         if mode == "any":
-            # Pick ONE winning chip (lowest rank among hitting chips) and
-            # take its entire record, so (t, u, v, slot) always describe a
-            # single real intersection — same rank-select pattern as the
-            # closest path below (ADVICE r1: pmax-per-field produced
-            # chimera records mixing fields from different chips).
+            # Pick ONE winning device (lowest rank among hitting devices)
+            # and take its entire record, so (t, u, v, slot) always
+            # describe a single real intersection — same rank-select
+            # pattern as the closest path below (a pmax per field would
+            # mix fields from different devices).
             hit = jax.lax.pmax(h.hit.astype(jnp.int32), axis) > 0
             brank = jax.lax.pmin(
                 jnp.where(h.hit, rank, jnp.int32(n_dev)), axis)
@@ -485,12 +422,12 @@ def trace_scene_sharded(
             gslot = jnp.where(h.slot >= 0, rank * tp_max + h.slot, -1)
             slot = jax.lax.psum(jnp.where(sel, gslot + 1, 0), axis) - 1
             # Miss keeps the local miss t (== ray max_t, identical on every
-            # chip since rays are replicated).
+            # device since rays are replicated).
             t = jnp.where(hit, jax.lax.psum(jnp.where(sel, h.t, 0.0), axis),
                           h.t)
             u = jax.lax.psum(jnp.where(sel, h.u, 0.0), axis)
             v = jax.lax.psum(jnp.where(sel, h.v, 0.0), axis)
-            return (hit, t, u, v, slot)
+            return (hit, t, u, v, slot, ovf)
         best_t = jax.lax.pmin(h.t, axis)
         win = (h.t <= best_t)
         brank = jax.lax.pmin(
@@ -501,7 +438,7 @@ def trace_scene_sharded(
             jnp.where(sel, gslot + 1, 0), axis) - 1
         u = jax.lax.psum(jnp.where(sel, h.u, 0.0), axis)
         v = jax.lax.psum(jnp.where(sel, h.v, 0.0), axis)
-        return (slot >= 0, best_t, u, v, slot)
+        return (slot >= 0, best_t, u, v, slot, ovf)
 
     rspec = P(ray_axis) if ray_axis is not None else P()
     sharded = jax.shard_map(
@@ -509,14 +446,15 @@ def trace_scene_sharded(
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P(axis),
                   rspec),
-        out_specs=(rspec,) * 5,
+        out_specs=(rspec,) * 6,
         check_vma=False,
     )
-    hit, t, u, v, slot = jax.jit(sharded)(
+    hit, t, u, v, slot, ovf = jax.jit(sharded)(
         sscene.nodes, sscene.tris, sscene.tri_v, sscene.tri_vidx,
         sscene.tri_mesh, sscene.tri_prim, rays)
     if rays.count != n_count:
-        hit, t, u, v, slot = (a[:n_count] for a in (hit, t, u, v, slot))
+        hit, t, u, v, slot, ovf = (a[:n_count]
+                                   for a in (hit, t, u, v, slot, ovf))
         rays = jax.tree.map(lambda a: a[:n_count], rays)
     return PacketHits(
         hit=hit, t=t, u_k=u, v_k=v, slot=slot,
@@ -526,6 +464,7 @@ def trace_scene_sharded(
         tri_vidx=sscene.tri_vidx.reshape(-1, 3),
         tri_mesh=sscene.tri_mesh.reshape(-1),
         tri_prim=sscene.tri_prim.reshape(-1),
+        overflow=ovf,
     )
 
 

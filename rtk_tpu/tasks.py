@@ -5,7 +5,7 @@ task, the host calls rtk_run_task from as many threads as it likes, each run
 may push follow-up tasks into a caller-provided queue, and phase transitions
 ride an atomic counter (rtk.h:108-115; rtk.c:679-710, 1692-1717).
 
-On TPU the accelerated build is a single fused device program (scene.py), so
+The accelerated build is a single fused device program (scene.py), so
 the task system's job shifts to what still benefits from host parallelism:
 per-mesh decode (strides/dtypes/callbacks — CPU-bound, one task per mesh),
 soup assembly, device upload + build dispatch, and kernel-table packing.

@@ -1,4 +1,4 @@
-"""PackedScene: kernel-ready scene tables for the Pallas packet tracer.
+"""PackedScene: kernel-ready scene tables for the traversal kernel.
 
 The packed wide tree is built straight from the *binary* LBVH topology with
 a greedy collapse: starting from a node's two children, repeatedly expand
@@ -11,7 +11,7 @@ steps.  It generalises the reference's binary->BVH4 grandchild collapse
 Nodes are numbered in BFS order with each node's internal children (and
 leaf children) CONTIGUOUS, so the kernel derives every child pointer from
 (first_child, first_leaf, slot masks) — no per-slot pointer loads.  This is
-the TPU analogue of rtk's linearizer pass (rtk.c:1509-1622): rtk emits
+the analogue of rtk's linearizer pass (rtk.c:1509-1622): rtk emits
 level-ordered BVH4 nodes + packed leaf records into a relocatable blob; we
 emit BFS-ordered SoA rows + reordered triangle rows into device tables.
 
@@ -20,12 +20,14 @@ through saved mappings (jitted).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from rtk_tpu.pytree import pytree_dataclass, static_field
 
 from rtk_tpu.scene import Scene
 
@@ -36,15 +38,16 @@ NODE_ROW_I32 = 8  # per child: [minx miny minz maxx maxy maxz meta0 meta1]
 TRI_ROW_F32 = 16  # [v0(3) v1(3) v2(3) | 7 pad]
 
 
-class PackedScene(struct.PyTreeNode):
+@pytree_dataclass
+class PackedScene:
     """Dense scene tables + mappings; product of pack_scene(scene).
 
     nodes holds 8 rows per packed node (one per child slot): columns 0-5 are
-    the child AABB (f32 bitcast into an int32 table — TPU flushes denormal
-    floats, so integer metadata must never live in a float-typed table), and
-    the first two rows carry node metadata in columns 6-7: row0 =
-    (first_child, first_leaf), row1 = (int_mask | leaf_mask << 8, unused).
-    One (8, 8) dynamic slice per node fetches bounds AND push metadata.
+    the child AABB (f32 bit patterns in an int32 table, so integer metadata
+    shares the table unharmed), and the first two rows carry node metadata
+    in columns 6-7: row0 = (first_child, first_leaf), row1 = (int_mask |
+    leaf_mask << 8, unused).  The kernel reads the table flat: node n,
+    child c, column k is word (n * 8 + c) * 8 + k.
     """
 
     nodes: Array  # (Nd*8, 8) i32 child rows with embedded meta
@@ -58,11 +61,8 @@ class PackedScene(struct.PyTreeNode):
     # Refit mappings.
     slot_src: Array  # (Nd, 8) i32: binary node id / leaf code / -1 per slot
     tri_perm: Array  # (Tp,) i32 old sorted-tri slot per new slot
-    num_tris: int = struct.field(pytree_node=False)
-    leaf_size: int = struct.field(pytree_node=False)
-    # Wide arity of the node table (8 classic; 16 = the r5 W=16 tables
-    # for internal-pop-bound configs — the kernel reads it as w_arity).
-    branching: int = struct.field(pytree_node=False, default=8)
+    num_tris: int = static_field()
+    leaf_size: int = static_field()
 
     @property
     def num_nodes(self) -> int:
@@ -185,9 +185,8 @@ def _gather_rows(bin_min, bin_max, leaf_min, leaf_max, slot_src, meta, *,
     return rows.reshape(n_rows * w, 8)
 
 
-MASK_COL = 9  # filter-mask column in the kernel tri row (float VALUE,
-              # not bitcast: TPU flushes denormals, so integer bits in a
-              # float table get destroyed; exact integers <= 2^24 survive)
+MASK_COL = 9  # filter-mask column in the kernel tri row (an exact float
+              # value: integers <= 2^24 survive)
 MASK_ALL = float(0xFFFFFF)  # 24-bit all-pass mask
 MESH_COL = 10  # mesh index as an exact float value (filter callables)
 PRIM_COL = 11  # triangle index as an exact float value (<= 2^24 exact;
@@ -223,12 +222,12 @@ def _tri_rows(tri_v, valid, mask=None, mesh=None, prim=None):
 
 
 def pack_scene(scene: Scene, tri_mask=None) -> PackedScene:
-    """Pack a built Scene for the Pallas packet kernel.
+    """Pack a built Scene for the traversal kernel.
 
     tri_mask: optional (num_tris,) uint32 per-triangle filter-mask bits in
     ORIGINAL soup order (24 bits used).  A trace with filter_mask=m tests
     only triangles with (tri_mask & m) != 0 — the packet-kernel filter
-    family (arbitrary callables stay on the XLA stack engine)."""
+    family; arbitrary callables stay on the XLA stack engine)."""
     k = scene.leaf_size
     if scene.num_leaves == 1:
         slot_src = np.full((1, W), -1, np.int64)
@@ -342,7 +341,8 @@ def pack_multiroot(scene: Scene, roots, tri_mask=None) -> PackedScene:
     )
 
 
-class BinaryRefitAux(struct.PyTreeNode):
+@pytree_dataclass
+class BinaryRefitAux:
     """Refit mappings for a host-built binary tree (pack_binary_tree).
 
     A binned-SAH builder partitions triangles IN PLACE, so every binary
@@ -403,7 +403,8 @@ def refit_packed_binary(packed: PackedScene, aux: BinaryRefitAux,
                          n_rows=packed.num_nodes)
     tp = tri_v.shape[0]
     mask_col = packed.tris[:tp, MASK_COL]  # mask col rides along
-    return packed.replace(
+    return dataclasses.replace(
+        packed,
         nodes=nodes,
         tris=_tri_rows(tri_v, valid, mask_col, packed.tri_mesh,
                        packed.tri_prim),
@@ -466,9 +467,8 @@ def _binary_refit_aux(left, right, first, count, is_leaf, leaf_nodes,
 def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
                      order, root, leaf_size: int, tri_vidx=None,
                      tri_mesh=None, tri_prim=None,
-                     tri_mask=None, return_refit_aux: bool = False,
-                     branching: int = 8):
-    """Pack an ARBITRARY host-built binary BVH for the packet kernel.
+                     tri_mask=None, return_refit_aux: bool = False):
+    """Pack an ARBITRARY host-built binary BVH for the traversal kernel.
 
     Feeds any binary topology (e.g. the corrected-rtk C++ oracle's binned
     SAH via NativeOracle.export_tree) through the same greedy wide
@@ -516,13 +516,13 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
     roots_m = np.where(is_leaf[roots], -(lidx[roots] + 2), roots)
     if np.ndim(root) == 0:
         slot_src = _greedy_slots(lm, rm, _area(box_lo, box_hi),
-                                 root=int(roots_m[0]), w=branching)
+                                 root=int(roots_m[0]))
         meta, leaf_order = _pack_meta(slot_src)
     else:
         # Forest: packed entry id of root r is r (root rows reserved
         # first, pack_multiroot convention) — multi-BLAS SAH tables.
         slot_src = _greedy_slots(lm, rm, _area(box_lo, box_hi),
-                                 root=roots_m, w=branching)
+                                 root=roots_m)
         meta, leaf_order = _pack_meta(slot_src,
                                       root_rows=roots_m.shape[0])
     assert leaf_order.shape[0] == nl, (leaf_order.shape[0], nl)
@@ -579,7 +579,6 @@ def pack_binary_tree(tri_v, left, right, first, count, box_lo, box_hi,
         tri_perm=jnp.asarray(np.where(valid, tri_ids, -1).astype(np.int32)),
         num_tris=int(T),
         leaf_size=k,
-        branching=branching,
     )
     return (packed, aux) if return_refit_aux else packed
 
@@ -592,7 +591,8 @@ def repack_bounds(packed: PackedScene, scene: Scene) -> PackedScene:
     tri_v = jnp.take(scene.tri_v, packed.tri_perm, axis=0)
     tp = tri_v.shape[0]
     mask_col = packed.tris[:tp, MASK_COL]  # mask col rides along
-    return packed.replace(
+    return dataclasses.replace(
+        packed,
         nodes=nodes,
         tris=_tri_rows(tri_v, packed.tri_prim >= 0, mask_col,
                        packed.tri_mesh, packed.tri_prim),

@@ -26,7 +26,8 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from rtk_tpu.pytree import pytree_dataclass
 
 from rtk_tpu.config import TraceConfig
 from rtk_tpu.ops.intersect import (
@@ -59,7 +60,8 @@ _NETWORKS = {
 }
 
 
-class HitCandidate(struct.PyTreeNode):
+@pytree_dataclass
+class HitCandidate:
     """Per-lane candidate passed to any-hit filter callables.
 
     The functional analogue of rtk_filter_fn (rtk.h:117): the filter sees the

@@ -1,12 +1,8 @@
 """Stackless skip-link traversal — the incoherent-ray engine.
 
-The packet kernel (ops/pallas_trace.py) amortises work across 128-ray
-packets, which is ideal for coherent primary rays but collapses for
-incoherent bounce batches: a packet's traversal is the union of its rays'
-traversals.  This engine takes the opposite trade: every ray advances
-independently through a linearised tree, so total work is proportional to
-the sum of per-ray visits — no union blow-up — at the cost of per-ray
-gathers (which XLA lowers well on TPU).
+An XLA engine in which every ray advances independently through a
+linearised tree, so total work is proportional to the sum of per-ray
+visits, at the cost of per-ray gathers.  It needs no stack.
 
 Layout: the binary LBVH is linearised in DFS preorder into one entity
 table.  An entity is either an internal node (child AABB + skip link) or an
@@ -32,7 +28,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from rtk_tpu.pytree import pytree_dataclass, static_field
 
 from rtk_tpu.scene import Scene
 from rtk_tpu.types import Hits, Rays
@@ -45,14 +42,15 @@ SKIP_COL = 6
 SLOT_COL = 9
 
 
-class StacklessScene(struct.PyTreeNode):
+@pytree_dataclass
+class StacklessScene:
     entities: Array  # (E, 16) i32 rows (f32 payloads bitcast)
     # Hit assembly uses the Scene's sorted tri arrays (slot indexes them).
     tri_v: Array
     tri_vidx: Array
     tri_mesh: Array
     tri_prim: Array
-    num_tris: int = struct.field(pytree_node=False)
+    num_tris: int = static_field()
 
     @property
     def num_entities(self) -> int:

@@ -12,10 +12,13 @@ Parity notes (reference rtk.h):
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from rtk_tpu.pytree import pytree_dataclass, static_field
 
 Array = jax.Array
 
@@ -24,7 +27,8 @@ Array = jax.Array
 RTK_INF = np.float32(3.402823e38)  # rtk.h:11
 
 
-class Rays(struct.PyTreeNode):
+@pytree_dataclass
+class Rays:
     """A batch of rays, SoA."""
 
     origin: Array  # (N, 3) f32
@@ -61,7 +65,8 @@ class Rays(struct.PyTreeNode):
         return jax.tree.map(lambda a: a[idx], self)
 
 
-class Hits(struct.PyTreeNode):
+@pytree_dataclass
+class Hits:
     """Hit records for a batch of rays, SoA.
 
     Misses have hit=False, t == ray.max_t, indices == -1 (rtk leaves the hit
@@ -99,7 +104,8 @@ class Hits(struct.PyTreeNode):
         return jax.tree.map(lambda a: a[idx], self)
 
 
-class PacketHits(struct.PyTreeNode):
+@pytree_dataclass
+class PacketHits:
     """Lazily-assembled hit records from the packet kernel.
 
     The kernel returns (t, u, v, slot) per ray; materialising the rest of
@@ -126,11 +132,14 @@ class PacketHits(struct.PyTreeNode):
     tri_vidx: Array  # (Tp, 3) i32
     tri_mesh: Array  # (Tp,) i32
     tri_prim: Array  # (Tp,) i32
+    # (N,) bool: the ray's traversal stack overflowed and its record may
+    # be incomplete (None for records not produced by the kernel).
+    overflow: Array | None = None
     # defer_uv traces don't carry u/v through the kernel (two fewer hit
     # carries + per-triangle normalises); .u/.v re-run the same
     # watertight shear test against the ONE winning triangle on access —
     # the lazy-assembly pattern the rest of this class already uses.
-    uv_deferred: bool = struct.field(pytree_node=False, default=False)
+    uv_deferred: bool = static_field(default=False)
 
     @property
     def count(self) -> int:
@@ -206,8 +215,10 @@ class PacketHits(struct.PyTreeNode):
 
     def __getitem__(self, idx) -> "PacketHits":
         per_ray = ("hit", "t", "u_k", "v_k", "slot", "origin", "direction")
-        return self.replace(
-            **{f: getattr(self, f)[idx] for f in per_ray})
+        if self.overflow is not None:
+            per_ray += ("overflow",)
+        return dataclasses.replace(
+            self, **{f: getattr(self, f)[idx] for f in per_ray})
 
 
 def miss_hits(n: int) -> Hits:

@@ -154,7 +154,7 @@ class NativeOracle:
 class NativeOracleSSE:
     """Clean-room SSE BVH4 CPU tracer (r5): the honest reference-CPU
     baseline — the reference's own kernel is a 4-wide SSE BVH4
-    (rtk.c:181-539), so CPU-vs-TPU ratios must be quoted against this,
+    (rtk.c:181-539), so CPU-vs-device ratios must be quoted against this,
     not the scalar BVH2 stand-in above."""
 
     def __init__(self, tri_pos: np.ndarray, leaf_max: int = 4):

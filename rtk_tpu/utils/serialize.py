@@ -3,7 +3,7 @@
 The reference's scene *is* its file format — a relocatable blob with a
 magic/endian/version/sizeof_real header and byte-offset section table
 (rtk.h:78-89, rtk.c:1732-1774), explicitly designed for save/mmap.  This
-module preserves those semantics for the TPU scene pytrees:
+module preserves those semantics for the scene pytrees:
 
   header:  magic "\\0RTK8TPU" (8 bytes), endian mark 0xAABB (u16),
            sizeof_real (u8), kind (u8), version (u32),
@@ -206,33 +206,33 @@ def save_packed_scene(packed, f: Union[str, BinaryIO]) -> int:
     if isinstance(f, str):
         with open(f, "wb") as fh:
             return save_packed_scene(packed, fh)
+    from rtk_tpu.trace.packed import W
+
     arrays = {name: getattr(packed, name) for name in _PACKED_FIELDS}
-    # meta slot 2 was kz_tables (a pruned r3 experiment); kept as 0 so the
-    # on-disk layout is unchanged and old readers still parse new blobs.
-    # Slot 3 (r5): wide arity of the node table (8 classic, 16 = W=16
-    # tables) — without it a W=16 blob would reload as branching=8 and
-    # the kernel would misread the 16-row-stride table.
-    meta = (packed.num_tris, packed.leaf_size, 0, packed.branching)
+    # meta slot 2 was kz_tables (a pruned layout experiment); kept as 0 so
+    # the on-disk layout is unchanged.  Slot 3 is the node table's wide
+    # arity; the kernel reads 8-wide tables only.
+    meta = (packed.num_tris, packed.leaf_size, 0, W)
     return _save_container(KIND_PACKED, arrays, meta, f)
 
 
 def load_packed_scene(f):
-    from rtk_tpu.trace.packed import PackedScene
+    from rtk_tpu.trace.packed import W, PackedScene
 
     kind, arrays, meta_ints = _load_container(_read(f))
     if kind != KIND_PACKED:
         raise ValueError(f"blob holds kind {kind}, not a PackedScene")
     num_tris, leaf_size = meta_ints[:2]
     if len(meta_ints) > 2 and meta_ints[2]:
-        # kz_tables packs (3 stacked rotated tables) were an r3
-        # experiment pruned in r4 — their table layout no longer matches
-        # the kernel.  Repack the scene to migrate.
+        # kz_tables packs (3 stacked rotated tables) no longer match the
+        # kernel's layout.  Repack the scene to migrate.
         raise ValueError("blob was saved with kz_tables=True, which is "
                          "no longer supported; re-pack the scene")
-    branching = int(meta_ints[3]) if len(meta_ints) > 3 else 8
+    if len(meta_ints) > 3 and meta_ints[3] != W:
+        raise ValueError(f"blob holds {meta_ints[3]}-wide node tables; the "
+                         f"kernel reads {W}-wide tables; re-pack the scene")
     return PackedScene(
         num_tris=int(num_tris), leaf_size=int(leaf_size),
-        branching=branching,
         **{n: arrays[n] for n in _PACKED_FIELDS})
 
 

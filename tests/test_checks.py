@@ -1,4 +1,5 @@
 """Debug validation paths (testing/checks.py)."""
+import dataclasses
 import numpy as np
 import pytest
 
@@ -13,10 +14,10 @@ def test_validate_rays_catches_nan_and_zero():
     good = Rays.make(np.zeros((4, 3), np.float32),
                      np.ones((4, 3), np.float32))
     validate_rays(good)
-    bad_o = good.replace(origin=good.origin.at[1, 0].set(np.nan))
+    bad_o = dataclasses.replace(good, origin=good.origin.at[1, 0].set(np.nan))
     with pytest.raises(ValidationError, match="origin"):
         validate_rays(bad_o)
-    bad_d = good.replace(direction=good.direction.at[2].set(0.0))
+    bad_d = dataclasses.replace(good, direction=good.direction.at[2].set(0.0))
     with pytest.raises(ValidationError, match="all-zero"):
         validate_rays(bad_d)
 
@@ -67,19 +68,18 @@ def test_log_build_emits_per_level_lines():
 
 
 def test_measure_trace_with_steps():
-    # regression: _run_kernel grew scalar-prefetch args (qmask) and
-    # measure_trace's stats path wasn't updated (zero coverage).
+    # measure_trace's step-count path runs the kernel's stats output.
     from rtk_tpu.tracer import Tracer
     from rtk_tpu.utils.stats import measure_trace
 
     tris = scenes.blob(subdivisions=3)[0]
     scene = build_scene(
         (tris.reshape(-1, 3), np.arange(tris.shape[0] * 3).reshape(-1, 3)))
-    tracer = Tracer(scene, engine="packet")
+    tracer = Tracer(scene, engine="packet", interpret=True)
     rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 32, 32)
     st = measure_trace(tracer, rays, iters=1, with_steps=True)
     assert st.rays == rays.count
-    assert st.steps_per_block and st.steps_per_block > 0
+    assert st.steps_per_ray and st.steps_per_ray > 0
 
 
 def test_log_build_per_node_mode():

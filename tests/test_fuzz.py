@@ -65,18 +65,12 @@ def test_fuzz_engines_agree_with_oracle(seed):
 
     for cfg in (BuildConfig(branching=8, leaf_size=4),
                 BuildConfig(branching=8, leaf_size=8),
-                # K=16: the headline leaf-size candidate (PERF_NOTES r2)
                 BuildConfig(branching=8, leaf_size=16)):
         scene = build_from_soup(jnp.asarray(tris), config=cfg)
         packed = pack_scene(scene)
         got_s = _stack.trace_closest(scene, rays, config=TraceConfig())
         got_p = trace_packets(packed, rays, interpret=True)
         engines = [("stack", got_s), ("packet", got_p)]
-        if cfg.leaf_size % 8 == 0:
-            # dual+HBM: the adversarial soups exercise the DMA-staged
-            # leaf path and the dual queue's backpressure too.
-            engines.append(("packet-hbm", trace_packets(
-                packed, rays, interpret=True, dual=True, hbm_tris=True)))
         for tag, got in engines:
             gh = np.asarray(got.hit)
             gt = np.asarray(got.t)

@@ -94,7 +94,7 @@ def test_render_path_bounce_tracer_matches():
     scene = build_scene(
         (tris.reshape(-1, 3), np.arange(tris.shape[0] * 3).reshape(-1, 3)))
     tracer = Tracer(scene)
-    bt = Tracer(scene, engine="grid")
+    bt = Tracer(scene, engine="packet", interpret=True)
     mats = Materials.make(albedo=[[0.7, 0.7, 0.7]])
     rays = scenes.cornell_camera(12, 12)
     key = jax.random.PRNGKey(3)

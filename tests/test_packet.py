@@ -1,4 +1,4 @@
-"""Pallas packet kernel vs the XLA stack tracer (interpret mode on CPU)."""
+"""Traversal kernel vs the XLA stack tracer (Pallas interpret mode on CPU)."""
 import pytest
 import numpy as np
 
@@ -119,21 +119,6 @@ def test_packet_refit_repack():
         np.asarray(got.t)[wh], np.asarray(want.t)[wh], atol=1e-5)
 
 
-def test_packet_hbm_tris_matches_vmem():
-    """HBM-resident triangle tables (DMA-staged) must be bit-identical."""
-    rng = np.random.default_rng(13)
-    tris = rng.normal(size=(600, 3, 3)).astype(np.float32)
-    scene = build_scene(_soup_of(tris), BuildConfig(leaf_size=8))
-    packed = pack_scene(scene)
-    rays = Rays.make(rng.normal(size=(256, 3)).astype(np.float32) * 3.0,
-                     rng.normal(size=(256, 3)).astype(np.float32))
-    a = trace_packets(packed, rays, interpret=True, hbm_tris=False)
-    b = trace_packets(packed, rays, interpret=True, hbm_tris=True)
-    np.testing.assert_array_equal(np.asarray(a.t), np.asarray(b.t))
-    np.testing.assert_array_equal(np.asarray(a.triangle_index),
-                                  np.asarray(b.triangle_index))
-
-
 def test_packet_chunked_matches():
     """trace_packets_chunked (bounded-memory host loop over chunk-ray
     slices, dead-ray padded final slice) must be bit-identical to the
@@ -162,25 +147,6 @@ def test_packet_chunked_matches():
     np.testing.assert_array_equal(np.asarray(a.t), np.asarray(c.t))
 
 
-def test_packet_dual_queue_matches():
-    """dual=True (split internal stack + leaf queue) must agree with the
-    single mixed-stack path in both closest and any-hit modes."""
-    rng = np.random.default_rng(17)
-    tris = rng.normal(size=(400, 3, 3)).astype(np.float32)
-    scene = build_scene(_soup_of(tris), BuildConfig(leaf_size=8))
-    packed = pack_scene(scene)
-    rays = Rays.make(rng.normal(size=(256, 3)).astype(np.float32) * 3.0,
-                     rng.normal(size=(256, 3)).astype(np.float32))
-    for mode in ("closest", "any"):
-        a = trace_packets(packed, rays, interpret=True, mode=mode)
-        b = trace_packets(packed, rays, interpret=True, mode=mode, dual=True)
-        np.testing.assert_array_equal(np.asarray(a.hit), np.asarray(b.hit))
-        if mode == "closest":
-            np.testing.assert_array_equal(np.asarray(a.t), np.asarray(b.t))
-            np.testing.assert_array_equal(np.asarray(a.triangle_index),
-                                          np.asarray(b.triangle_index))
-
-
 def test_packet_hits_lazy_surface():
     """PacketHits: lazy fields match the eager assembly, slicing works."""
     tris = scenes.blob(subdivisions=3)[0]
@@ -207,37 +173,6 @@ def test_packet_hits_lazy_surface():
     assert sub.tri_v.shape == got.tri_v.shape
     np.testing.assert_array_equal(np.asarray(sub.triangle_index),
                                   np.asarray(full.triangle_index)[:7])
-
-
-def test_packet_ordered_and_islab_variants():
-    """Experimental stepping flags keep the hit-record contract: identical
-    t everywhere; triangle ids may differ only at exact-t ties."""
-    tris = scenes.blob(subdivisions=3)[0]
-    rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 16, 16)
-    # leaf_size=8: leaf_loop needs lane-aligned leaves (% 8 == 0).
-    scene = build_scene(_soup_of(tris), BuildConfig(leaf_size=8))
-    packed = pack_scene(scene)
-    ref = trace_packets(packed, rays, interpret=True)
-    # islab+dual is the exact config the headline bench auto-selects at
-    # pkt>=2048 (ADVICE r1) — it must be covered on CPU.
-    # ordered+dual now carries entry keys through the dual compaction and
-    # prunes stale internal subtrees at pop (r4); leaf_loop is the
-    # chunked-fori leaf phase — both must stay bit-equal.
-    for kw in (dict(ordered=True), dict(islab=True),
-               dict(islab=True, ordered=True), dict(islab=True, dual=True),
-               dict(islab=True, dual=True, ordered=True),
-               dict(dual=True, ordered=True),
-               dict(dual=True, ordered=True, leaf_loop=True)):
-        got = trace_packets(packed, rays, interpret=True, **kw)
-        np.testing.assert_array_equal(np.asarray(got.hit),
-                                      np.asarray(ref.hit))
-        np.testing.assert_allclose(np.asarray(got.t), np.asarray(ref.t),
-                                   rtol=1e-6, atol=1e-6)
-        mism = np.asarray(got.triangle_index) != np.asarray(
-            ref.triangle_index)
-        if mism.any():
-            dt = np.abs(np.asarray(got.t)[mism] - np.asarray(ref.t)[mism])
-            assert dt.max() == 0.0, "non-tie triangle mismatch"
 
 
 def test_packet_watertight_closed_mesh():
@@ -355,12 +290,6 @@ def test_packet_filter_callable_matches_stack():
     ti = np.asarray(occ.triangle_index)
     assert oc.any() and (ti[oc] % 3 == 1).all()
 
-    # dual queues + filter agree too
-    got_d = trace_packets(packed, rays, interpret=True, dual=True,
-                          filter_fn=flt)
-    np.testing.assert_array_equal(np.asarray(got_d.hit),
-                                  np.asarray(want.hit))
-
     # mesh_index is visible to the predicate (single mesh here: all 0)
     flt_mesh = lambda cand: cand.mesh_index == 0
     got_m = trace_packets(packed, rays, interpret=True, filter_fn=flt_mesh)
@@ -370,7 +299,7 @@ def test_packet_filter_callable_matches_stack():
     # Tracer front-end: jit_filter keeps the callable on the packet path
     from rtk_tpu import Tracer, jit_filter
 
-    tr = Tracer(scene, engine="packet")
+    tr = Tracer(scene, engine="packet", interpret=True)
     h_tr = tr.closest(rays, filter_fn=jit_filter(flt))
     from rtk_tpu.types import PacketHits
 
@@ -473,10 +402,10 @@ def test_packet_anyhit_mixed_dead_lanes():
     gh = np.asarray(got.hit)
     assert not gh[dead].any()
     np.testing.assert_array_equal(gh[~dead], np.asarray(ref.hit)[~dead])
-    for dual in (False, True):
-        g2 = trace_packets(packed, rays, interpret=True, mode="any",
-                           dual=dual)
-        np.testing.assert_array_equal(np.asarray(g2.hit), gh)
+    # sorting the batch regroups dead and live lanes; nothing changes
+    g2 = trace_packets(packed, rays, interpret=True, mode="any",
+                       sort_rays=True)
+    np.testing.assert_array_equal(np.asarray(g2.hit), gh)
 
 
 def test_packet_defer_uv_matches():
@@ -489,11 +418,10 @@ def test_packet_defer_uv_matches():
     scene = build_scene(_soup_of(tris))
     packed = pack_scene(scene)
     rays = scenes.camera_rays((0, 0, 3.0), (0, 0, 0), (0, 1, 0), 45, 64, 64)
-    for dual, sort in ((False, False), (True, False), (True, True)):
-        ref = trace_packets(packed, rays, interpret=True, dual=dual,
-                            sort_rays=sort)
-        got = trace_packets(packed, rays, interpret=True, dual=dual,
-                            sort_rays=sort, defer_uv=True)
+    for sort in (False, True):
+        ref = trace_packets(packed, rays, interpret=True, sort_rays=sort)
+        got = trace_packets(packed, rays, interpret=True, sort_rays=sort,
+                            defer_uv=True)
         assert got.uv_deferred
         np.testing.assert_array_equal(np.asarray(got.hit),
                                       np.asarray(ref.hit))

@@ -191,31 +191,6 @@ def test_partition_soup_rejects_tiny_scenes():
         partition_soup(tri_pos, 8)
 
 
-def test_grid_engine_sharded_matches_single():
-    """Macro-grid DDA engine under shard_map on the virtual 8-device
-    mesh (GridScene replicated, rays split)."""
-    import jax
-    import numpy as np
-
-    from rtk_tpu.config import BuildConfig
-    from rtk_tpu.parallel.shard import default_mesh, trace_grid_sharded
-    from rtk_tpu.testing import scenes
-    from rtk_tpu.trace.grid import build_grid, trace_packets_grid
-    from rtk_tpu.types import Rays
-
-    tris = scenes.blob(subdivisions=3)[0]
-    g = build_grid(tris, config=BuildConfig(branching=8, leaf_size=8))
-    rng = np.random.default_rng(31)
-    rays = Rays.make(rng.normal(size=(300, 3)).astype(np.float32) * 0.5,
-                     rng.normal(size=(300, 3)).astype(np.float32))
-    mesh = default_mesh(jax.devices()[:8])
-    got = trace_grid_sharded(g, rays, mesh, interpret=True, rounds=4)
-    want = trace_packets_grid(g, rays, interpret=True, rounds=4)
-    np.testing.assert_array_equal(np.asarray(got.hit),
-                                  np.asarray(want.hit))
-    np.testing.assert_array_equal(np.asarray(got.t), np.asarray(want.t))
-
-
 def test_instanced_sharded_matches_single():
     """Instanced (TLAS/BLAS) packet tracing under shard_map on the
     virtual 8-device mesh (PackedInstancedScene replicated, rays split;

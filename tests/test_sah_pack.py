@@ -136,7 +136,7 @@ def test_sah_refit_fused_and_frames_paths():
 
 
 def test_refit_trace_perf_flags_parity():
-    """ordered/islab/leaf_loop/defer_uv plumbed through the refit
+    """defer_uv and the hoisted coherence sort plumbed through the refit
     executors must keep hit/t bit-parity with the default path (they
     are scheduling/laziness knobs, not semantics)."""
     import jax.numpy as jnp
@@ -154,19 +154,17 @@ def test_refit_trace_perf_flags_parity():
                         for t in (0.1, 0.3)])
     base = trace_packets_refit_frames(sah, aux, frames, cam, interpret=True)
     flag = trace_packets_refit_frames(sah, aux, frames, cam, interpret=True,
-                                      leaf_loop=True, defer_uv=True,
-                                      ordered=True)
+                                      defer_uv=True, sort_rays=True)
     for f in range(2):
         np.testing.assert_array_equal(np.asarray(base[f].hit),
                                       np.asarray(flag[f].hit))
         np.testing.assert_array_equal(np.asarray(base[f].t),
                                       np.asarray(flag[f].t))
-        # defer_uv: lazy recompute, exact up to fma contraction
+        # defer_uv: lazy recompute, equal up to rounding
         np.testing.assert_allclose(np.asarray(base[f].u),
                                    np.asarray(flag[f].u), atol=5e-5)
     h1, _, _ = trace_packets_refit(sah, aux, np.asarray(frames[1]), cam,
-                                   interpret=True, leaf_loop=True,
-                                   defer_uv=True)
+                                   interpret=True, defer_uv=True)
     np.testing.assert_array_equal(np.asarray(h1.hit),
                                   np.asarray(base[1].hit))
     np.testing.assert_array_equal(np.asarray(h1.t), np.asarray(base[1].t))
